@@ -1,17 +1,17 @@
-"""nimble_tpu — a TPU-native pseudoalignment-and-counting engine.
+"""nimble_tpu — a JAX pseudoalignment-and-counting engine.
 
 A from-scratch reimplementation of the capabilities of BimberLab/nimble-aligner
-(reference: /root/reference, a Rust CLI) designed TPU-first:
+(the reference is a Rust CLI) designed accelerator-first:
 
 * The hot inner loop (k-mer anchored, mismatch-tolerant read↔library matching,
   reference `src/align.rs:945` `pseudoalign` + the external `debruijn_mapping`
-  crate's `map_read_with_mismatch`) runs as batched XLA / Pallas kernels over
-  2-bit-packed reads against an HBM-resident k-mer hash index.
+  crate's `map_read_with_mismatch`) runs as batched XLA kernels over
+  2-bit-packed reads against a device-resident k-mer hash index.
 * Host code (Python + C++ native ops) handles IO (FASTQ/BAM), UMI group-by,
   config, and the tiny string-shaped tail of the pipeline (orientation /
   chemistry filtering, group rollup, TSV output) for exact output parity.
 * Scaling is data-parallel over reads via `jax.sharding.Mesh` + `shard_map`,
-  with per-feature count vectors merged by `jax.lax.psum` over ICI.
+  with per-feature count vectors merged by `jax.lax.psum`.
 
 Package layout:
   config       — aligner configuration (reference `src/align.rs:79-103`)

@@ -6,7 +6,7 @@ Parity ports of:
   * `get_calls`       — `src/align.rs:392-467`
   * `score::call` / `sort_score_vector` — `src/score.rs:14-46`, `src/utils.rs:54-59`
 
-Design difference from the reference (same results, TPU-shaped): alignment of
+Design difference from the reference (same results, batch-shaped): alignment of
 the reads happens through a batched ``AlignEngine`` interface instead of one
 `pseudoalign` call per read inside the loop, so the device engine can run the
 whole batch in fused kernels.  The host engine (`HostAlignEngine`) is the

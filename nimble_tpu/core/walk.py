@@ -21,7 +21,7 @@ de-Bruijn-graph walk.  Its semantics were pinned from the in-repo oracles:
        row matches the read base, i.e. where the graph has no matching edge).
 
 The formulation here (equivalent to the graph walk on linear paths, and the
-shape actually run on the TPU — see `nimble_tpu.ops`):
+shape actually run on the device — see `nimble_tpu.ops`):
 
   1. ANCHOR: scan the read left→right for the first k-mer (k=30) present in
      the library index.  No anchor -> no match.

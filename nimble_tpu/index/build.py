@@ -2,7 +2,7 @@
 
 The reference delegates index construction to the external `debruijn_mapping`
 crate (`build_index::build_index::<Kmer30>`, `src/bin/main.rs:121-128`), which
-builds a colored de Bruijn graph keyed by 30-mers.  For the TPU engine we use
+builds a colored de Bruijn graph keyed by 30-mers.  For the device engine we use
 an equivalent flat formulation designed for batched device probing:
 
   * every k-mer (k=30) of every library row is packed into a 60-bit integer

@@ -10,7 +10,7 @@ pipelines work unchanged (including the vectorized combo decode: global
 Exactness follows the single-chip engine: integer thresholds on device, f64
 gates via the compact flags, host-oracle rescue for unbounded reads.  On a
 single-host CPU run the mesh uses the 8 virtual devices from
-``xla_force_host_platform_device_count``; on a pod slice it spans all chips.
+``xla_force_host_platform_device_count``; on a GPU host it spans all cards.
 """
 
 from __future__ import annotations
@@ -46,6 +46,16 @@ class _BidxShim:
         self.postings_row = postings_row_flat
 
 
+def default_mesh(data: int, model: int) -> jax.sharding.Mesh:
+    """A (data, model) mesh over the local devices, with Auto axis types:
+    the kernels rely on the compiler to place the gathers of replicated
+    tables by data-sharded indices, which Explicit axes (``make_mesh``'s
+    default) refuse to resolve."""
+    auto = jax.sharding.AxisType.Auto
+    return jax.make_mesh((data, model), ("data", "model"),
+                         axis_types=(auto, auto))
+
+
 class MeshAlignEngine:
     """Data × model sharded fast engine (see module docstring)."""
 
@@ -73,7 +83,7 @@ class MeshAlignEngine:
             n = len(jax.devices())
             model = n_index_shards or (2 if n % 2 == 0 and n > 1 else 1)
             data = n // model
-            mesh = jax.make_mesh((data, model), ("data", "model"))
+            mesh = default_mesh(data, model)
         self.mesh = mesh
         self.data_shards = mesh.shape["data"]
         model_shards = mesh.shape["model"]

@@ -1,11 +1,11 @@
 """Device-resident k-mer index: open-addressed hash table + postings + rows.
 
 Derived from the host `KmerIndex` (`nimble_tpu.index.build`), laid out for
-batched probing on TPU:
+batched probing on the device:
 
   * 60-bit k-mer keys are split into two 30-bit halves carried as uint32
-    lanes (``key_hi`` = first 15 bases, ``key_lo`` = last 15 bases) — TPUs
-    have no native 64-bit integers;
+    lanes (``key_hi`` = first 15 bases, ``key_lo`` = last 15 bases) — JAX
+    runs with 64-bit integers disabled by default;
   * an open-addressed, linearly-probed hash table maps keys to a span
     (start, count) in the flat postings arrays; empty slots hold the sentinel
     0xFFFFFFFF in both key lanes (impossible: real halves are < 2^30);
@@ -88,12 +88,12 @@ class DeviceIndex:
 
 @dataclass
 class BucketedDeviceIndex:
-    """Bucketized hash layout for fast TPU probing.
+    """Bucketized hash layout for fast device probing.
 
     Element-wise linear probing (DeviceIndex) costs one random gather per
-    probe step; TPU gathers are slow, so this layout packs WIDTH slots into
-    one contiguous bucket row — a single gather fetches the whole bucket and
-    the lane compare runs on the VPU.  ``max_probe`` counts BUCKET hops
+    probe step; random gathers are the costly memory access, so this layout
+    packs WIDTH slots into one contiguous bucket row — a single gather
+    fetches the whole bucket and the lane compare is elementwise.  ``max_probe`` counts BUCKET hops
     (nearly always 1 at load <= 0.5).
 
     ``ref_codes_padded`` carries ``ref_pad`` guard zeros on both sides so the
@@ -251,10 +251,10 @@ def build_bucketed_index(
         n_buckets *= 2
 
     # grow until max_probe == 1: every probe hop costs a full (B, P, W)
-    # table gather + lane reduction in the kernel (~2 ms per hop on an
-    # 8192x96 launch), while another table doubling costs megabytes of
-    # HBM — overflowing buckets are Poisson-rare, so one doubling almost
-    # always suffices.  Cap at 64 MB per key half.
+    # table gather + lane reduction in the kernel, while another table
+    # doubling costs megabytes of device memory — overflowing buckets are
+    # Poisson-rare, so one doubling almost always suffices.  Cap at 64 MB
+    # per key half.
     while True:
         bkey_lo = np.full((n_buckets, width), EMPTY_SLOT, dtype=np.uint32)
         bkey_hi = np.full((n_buckets, width), EMPTY_SLOT, dtype=np.uint32)
@@ -277,8 +277,8 @@ def build_bucketed_index(
         ref_padded[ref_pad + row_starts[r] : ref_pad + row_starts[r] + len(codes)] = codes
 
     # 2-bit packing, 16 bases per uint32: base j lives in word j>>4 at bit
-    # 2*(j&15) — TPU gathers cost per element, so spans are fetched as a
-    # few words and unpacked on the VPU.
+    # 2*(j&15) — gathers cost per element, so spans are fetched as a few
+    # contiguous words and unpacked with shifts and masks.
     w = ref_padded.astype(np.uint32).reshape(-1, 16)
     shifts = (np.uint32(2) * np.arange(16, dtype=np.uint32))[None, :]
     ref_packed = (w << shifts).sum(axis=1, dtype=np.uint32)

@@ -1,6 +1,6 @@
 """Batched probe+walk on device (XLA formulation).
 
-This is the TPU-native version of the reference's innermost hot loop
+This is the device version of the reference's innermost hot loop
 (`map_read_with_mismatch`, see `nimble_tpu.core.walk` for the pinned
 semantics).  One jitted call processes a padded batch of reads:
 

@@ -1,7 +1,8 @@
 """Multi-host (multi-process) execution scaffolding.
 
-The reference is a single-node CLI; the TPU-native design target
-(SURVEY.md §2c) scales the FASTQ counting workload across hosts:
+The reference is a single-node CLI; this design (SURVEY.md §2c) scales the
+FASTQ counting workload across processes (hosts, or one process per device
+on one host):
 
   * each host reads a disjoint RECORD RANGE of the input file(s);
   * reads are routed to an OWNER host by content hash (exact global
@@ -13,12 +14,11 @@ The reference is a single-node CLI; the TPU-native design target
     counts simply add), and every host deterministically derives the same
     final sorted table; process 0 writes it.
 
-Process bootstrap is `jax.distributed.initialize`; cross-host data moves
-through `multihost_utils.process_allgather` (DCN).  The routing exchange
-broadcasts the (packed) chunk and filters locally — on pod hardware the
-same routing can ride `jax.lax.all_to_all` over ICI/DCN, but allgather is
-exact, simple, and the FASTQ payloads (2-bit packed) are small next to the
-alignment work.
+Process bootstrap is `jax.distributed.initialize`; cross-process data moves
+through `multihost_utils.process_allgather`.  The routing exchange
+broadcasts the (packed) chunk and filters locally — the same routing could
+ride `jax.lax.all_to_all`, but allgather is exact, simple, and the FASTQ
+payloads (2-bit packed) are small next to the alignment work.
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
 """Multi-chip execution: data-parallel reads × model-parallel k-mer index.
 
 The reference's only parallelism is a single-host thread pipeline
-(`src/process/bam.rs:149-226`); the TPU-native design scales over a 2-D
+(`src/process/bam.rs:149-226`); this design scales over a 2-D
 `jax.sharding.Mesh`:
 
   * ``data`` axis — reads are sharded batch-wise (the DP axis; one shard per
     chip, one feed per host);
   * ``model`` axis — the k-mer hash table + postings are sharded by key-hash
-    (the TP-analog axis for libraries whose index outgrows one chip's HBM).
+    (the TP-analog axis for libraries whose index outgrows one device's memory).
 
 Each key lives on exactly one model shard, so each read's anchor k-mer has
 exactly one owner.  The combine is pure XLA collectives inside `shard_map`:

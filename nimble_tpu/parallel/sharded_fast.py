@@ -212,7 +212,7 @@ def make_sharded_fast_step(
         # compacted, shared with the single-chip kernel); the global anchor
         # is ONE pmax of the (B,) encoded values over the model axis — the
         # old formulation psum'd a (B, P) per-position hit mask, ~P x more
-        # ICI traffic per launch.  Each key lives on exactly one shard, so
+        # interconnect traffic per launch.  Each key lives on exactly one shard, so
         # at the winning position only the owner shard matches (fingerprint
         # collisions on a non-owner shard lose the verification below and
         # route to host rescue, exactly like single-chip fp collisions).
@@ -258,7 +258,7 @@ def make_sharded_fast_step(
         live, walk_score, walk_mm = _span_walk(
             reads_i32, read_lens, anchor, rows, offs, live0,
             refp, rstarts, rlens,
-            k=k, ref_pad=sbidx.ref_pad, l_steps=min(p_limit - 1, bucket - k),
+            k=k, ref_pad=sbidx.ref_pad,
         )
 
         shard_id = jax.lax.axis_index("model").astype(jnp.int32)

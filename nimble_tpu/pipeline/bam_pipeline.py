@@ -5,9 +5,10 @@ Parity port of `bam::process` (`src/process/bam.rs:45-243`):
   * PRODUCER thread streams UMI×CB groups (UMIReader) into a bounded queue
     of 50 groups (`MAX_UMIS_IN_CHANNEL`, `:20,149`);
   * ``num_cores - 1`` CONSUMER threads align each group against every
-    library (`align_umi_to_libraries`, `:305-405`) — with the TPU engine a
-    "consumer" dispatches device batches, so one consumer usually saturates
-    a chip and extra consumers overlap host prep with device compute;
+    library (`align_umi_to_libraries`, `:305-405`) — with the device engine
+    a "consumer" dispatches device batches, so one consumer usually
+    saturates a device and extra consumers overlap host prep with device
+    compute;
   * a LOGGER thread writes one gzipped TSV per library and validates the
     gzip by full re-decompression at the end (`validate_gzip`, `:425-435`).
 

@@ -1,7 +1,7 @@
 """Observability: throughput counters and profiler hooks.
 
 The reference's only observability is println! progress markers (per-1M-read
-blocks, `src/parse/bam.rs:121-127`) plus the forensic TSV itself.  The TPU
+blocks, `src/parse/bam.rs:121-127`) plus the forensic TSV itself.  This
 build adds first-class counters (reads/s per stage) and an optional JAX
 profiler trace hook for on-device analysis.
 """

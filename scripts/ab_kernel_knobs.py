@@ -4,7 +4,7 @@
 Each configuration runs in a SUBPROCESS (the knobs are read at import) that
 times the full 8192x96 kernel with async-batched launches on a
 device-resident buffer and prints one number; this parent interleaves the
-configs twice to catch weather drift.
+configs twice to catch drift.
 
 Usage: python scripts/ab_kernel_knobs.py
 """
@@ -44,7 +44,7 @@ full = partial(
     row_starts=dev["row_starts"], row_lengths=dev["row_lengths"],
     s_min_table=s_min, score_threshold=thr, num_mismatches=nmm,
     discard_multiple=dm, discard_nonzero=dn, bucket=bucket,
-    use_pallas=os.environ.get("NIMBLE_PALLAS_AB", "") or False, **kw)
+    walk=os.environ.get("NIMBLE_WALK_AB", "") or "packed", **kw)
 
 @jax.jit
 def v_full(packed):

@@ -1,11 +1,10 @@
 """Same-process ABBA A/B on the 4-library single-pass dispatcher.
 
-VERDICT r4 item 5: multi-library ×4 moved 334k (r3) -> 311k (r4) with no
-attribution.  The candidate kernel-default changes were the 92 read
-bucket (90 bp reads pack to 23 B rows instead of 24) and the two-phase
-probe boundary 16 -> 8.  The bucket set is a constructor knob, so it
-A/Bs in one process; phase_a is a per-engine static arg since round 5
-(models/aligner.py `phase_a`), so it A/Bs in one process too.
+Two kernel defaults shape the multi-library x4 run: the 92 read bucket
+(90 bp reads pack to 23 B rows instead of 24) and the two-phase probe
+boundary.  The bucket set is a constructor knob, so it A/Bs in one
+process; phase_a is a per-engine static arg (models/aligner.py
+`phase_a`), so it A/Bs in one process too.
 
     python scripts/ab_multilib_inproc.py --knob bucket92 [--rounds 8]
     python scripts/ab_multilib_inproc.py --knob phase_a --a 8 --b 16

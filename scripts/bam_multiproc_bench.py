@@ -1,11 +1,11 @@
 """2-process BAM throughput vs single process on one host.
 
 The single-process BAM fast pipeline is GIL-bound on the 4-core host
-(~1.7-core achieved parallelism, STATUS round-5 ledger).  The framework
+(a 4-core host reached ~1.7 cores of parallelism).  The framework
 already shards BAM work across coordinated processes by contiguous
 group ranges (`--num-processes`, round 2); two processes dodge the GIL
 entirely.  This measures that, CPU backend held constant across both
-arms (children force NIMBLE_PLATFORM=cpu like the multihost FASTQ
+arms (children set JAX_PLATFORMS=cpu like the multihost FASTQ
 bench; the BAM device work is a small share of the wall).
 
     python scripts/bam_multiproc_bench.py [--groups 16384] [--rounds 3]
@@ -57,10 +57,8 @@ def main() -> int:
     print(f"BAM: {n_records} records / {args.groups} groups", flush=True)
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["NIMBLE_PLATFORM"] = "cpu"
     env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = "/root/repo"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nimble_tpu_jax_cache")
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     def run_single() -> float:
         out = f"{td}/s.tsv.gz"

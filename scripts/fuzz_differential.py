@@ -111,7 +111,7 @@ def make_reads(rng, feats, n_reads):
     return reads
 
 
-def check_trial(rng, use_fused, use_mesh=False):
+def check_trial(rng, use_abs, use_mesh=False):
     feats, doubled = make_library(rng)
     if not any(len(f) >= 30 for f in doubled):
         return 0  # index would be empty; loader would reject upstream
@@ -132,7 +132,7 @@ def check_trial(rng, use_fused, use_mesh=False):
         dev = MeshAlignEngine(index, cfg)
     else:
         dev = DeviceAlignEngine(
-            index, cfg, use_pallas_walk=("fused" if use_fused else False)
+            index, cfg, walk=("abs" if use_abs else "packed")
         )
     expected = host.align_batch(reads)
     got = dev.align_batch(reads)
@@ -141,12 +141,12 @@ def check_trial(rng, use_fused, use_mesh=False):
             if g != e:
                 raise AssertionError(
                     f"DIVERGENCE read {i}: device={g} host={e} "
-                    f"(fused={use_fused}, mesh={use_mesh}, "
+                    f"(abs={use_abs}, mesh={use_mesh}, "
                     f"cfg={cfg.__dict__})"
                 )
     # columnar full-output path (the BAM fast consumer's align), plain
     # device engine only — mesh full-output rides the same decode
-    if not use_mesh and not use_fused:
+    if not use_mesh and not use_abs:
         n = len(reads)
         W = max(len(r) for r in reads)
         mat = np.zeros((n, W), dtype=np.int8)
@@ -269,9 +269,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--minutes", type=float, default=30.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fused-every", type=int, default=5,
-                    help="run every Nth trial with the fused Pallas walk "
-                         "(interpret mode on CPU — slower)")
+    ap.add_argument("--abs-every", type=int, default=5,
+                    help="run every Nth trial with the unpacked abs walk")
     ap.add_argument("--repeat-rate", action="store_true",
                     help="repeat-heavy linear-vs-colored-DBG divergence "
                          "prevalence campaign (docs/SEMANTICS.md class)")
@@ -283,17 +282,17 @@ def main():
     t_end = time.time() + args.minutes * 60
     trials = reads_total = 0
     while time.time() < t_end:
-        use_fused = (args.fused_every
-                     and trials % args.fused_every == args.fused_every - 1)
+        use_abs = (args.abs_every
+                   and trials % args.abs_every == args.abs_every - 1)
         use_mesh = trials % 11 == 7  # occasional 8-virtual-device mesh
         # per-trial child seed so a failure is reproducible from the log
         child = int(rng.integers(0, 2**63 - 1))
         try:
             reads_total += check_trial(np.random.default_rng(child),
-                                       use_fused and not use_mesh, use_mesh)
+                                       use_abs and not use_mesh, use_mesh)
         except AssertionError:
             print(f"FAILED at trial {trials} child_seed={child} "
-                  f"fused={use_fused} mesh={use_mesh}", flush=True)
+                  f"abs={use_abs} mesh={use_mesh}", flush=True)
             raise
         trials += 1
         if trials % 25 == 0:

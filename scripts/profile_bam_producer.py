@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Producer-only decomposition of the BAM fast path.
 
-The round-4 NIMBLE_TIMING split shows the producer (ColumnarGroupStream)
-is the BAM pipeline's wall (~0.55 s per 131k records; consumers starve).
+When the NIMBLE_TIMING split shows the producer (ColumnarGroupStream) as
+the BAM pipeline's wall (consumers starve), this finds the stage.
 This times its stages standalone on the bench workload, no device, no
 consumers:
 

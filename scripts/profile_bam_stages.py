@@ -2,7 +2,7 @@
 
 Prints, per round, the producer read time, each consumer's
 prepare/collect/finish/queue-wait, and logger gzip time — the raw material
-for deciding which stage is the wall in the CURRENT weather window.
+for deciding which stage is the wall on the current machine.
 
     python scripts/profile_bam_stages.py --rounds 4 [--groups 16384]
 """

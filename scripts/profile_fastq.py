@@ -3,17 +3,13 @@
 
 Breaks a bench round into: host packing, device upload, kernel dispatch,
 result fetch, and the host counting tail — so optimization effort goes where
-the time actually is (VERDICT round-1: chip >99% idle, host tail dominant).
+the time actually is.
 """
 from __future__ import annotations
 
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nimble_tpu_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 if "--cpu" in sys.argv:
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -24,10 +20,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from bench import build_workload  # noqa: E402
 from nimble_tpu.core.fast_count import FastCounter  # noqa: E402
 from nimble_tpu.models.aligner import DeviceAlignEngine  # noqa: E402
+from nimble_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 N_READS = 1 << 17
 CHUNK = 1 << 16
@@ -89,7 +88,7 @@ def main():
             k=engine.bidx.k, max_probe=engine.bidx.max_probe, c_max=engine.c_max,
             bucket_mask=engine.bidx.n_buckets - 1,
             p_limit=min(p_limit, bucket - engine.bidx.k + 1),
-            ref_pad=engine.bidx.ref_pad, use_pallas=engine.use_pallas_walk,
+            ref_pad=engine.bidx.ref_pad, walk=engine.walk,
         )
     o = launch_dev(reads_dev[0][0], reads_dev[0][1], 90, 8)
     jax.block_until_ready(o)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Reference-scale BAM soak (VERDICT r2 item 5).
+"""Reference-scale BAM soak.
 
 The reference's real-world fixture is a 427 MB, multi-million-record 10x
 BAM (`tests/test-sequences/reads/sample.bam`, git-LFS).  This soak pushes

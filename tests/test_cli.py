@@ -100,3 +100,21 @@ def test_cli_fastq_mesh_engine(tmp_path):
         "A02-0\tA02-LC\t1",
         "A02-1\t1",
     ]
+
+
+def test_cli_fastq_mesh_two_libraries(tmp_path):
+    """--engine mesh with two libraries takes the mesh-sharded stacked
+    dispatcher over the CLI's default mesh; each TSV equals the host
+    oracle's single-library run."""
+    libs = [library_path("basic.json"), library_path("basic-rev.json")]
+    mesh_outs = [str(tmp_path / f"mesh{i}.tsv") for i in range(2)]
+    rc = main(["-r", libs[0], "-r", libs[1], "-i", reads_path("basic.fastq"),
+               "-o", mesh_outs[0], "-o", mesh_outs[1], "--engine", "mesh"])
+    assert rc == 0
+    for lib, got in zip(libs, mesh_outs):
+        want = str(tmp_path / "host.tsv")
+        assert main(["-r", lib, "-i", reads_path("basic.fastq"), "-o", want,
+                     "--engine", "host"]) == 0
+        assert open(got).read() == open(want).read()
+        assert len(open(got).read().splitlines()) > 1
+        (tmp_path / "host.tsv").unlink()

@@ -18,39 +18,15 @@ import gzip
 import io
 import os
 
-import numpy as np
 import pytest
 
-from nimble_tpu.config import AlignFilterConfig
+from chip_smoke import forensic_workload as _workload
 from nimble_tpu.core.calls import HostAlignEngine
-from nimble_tpu.index.build import build_index
-from nimble_tpu.library import Reference
 from nimble_tpu.models.aligner import DeviceAlignEngine
 from nimble_tpu.pipeline import bam_pipeline
-from nimble_tpu.utils.dna import revcomp
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "data", "golden")
 BAM = os.path.join(GOLDEN_DIR, "forensic.bam")
-
-
-def _workload():
-    rng = np.random.default_rng(12345)
-    feats = ["".join(rng.choice(list("ACGT"), size=180)) for _ in range(5)]
-    doubled = [x for s in feats for x in (s, revcomp(s))]
-    names = []
-    for i in range(5):
-        names.append(f"F{i}")
-        names.append(f"F{i}§rev")
-    reference = Reference(
-        group_on=0, headers=["sequence_name", "sequence"],
-        columns=[names, doubled], sequence_name_idx=0, sequence_idx=1,
-    )
-    index = build_index(doubled)
-    cfg = AlignFilterConfig(
-        reference_genome_size=10, score_percent=0.25, score_threshold=40,
-        num_mismatches=2, max_hits_to_report=8,
-    )
-    return reference, index, cfg
 
 
 def _expected(quirks: bool) -> bytes:

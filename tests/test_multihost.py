@@ -97,7 +97,6 @@ _WORKER = textwrap.dedent("""
     import os, sys, pickle
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nimble_tpu_jax_cache_mh")
     import jax
     jax.config.update("jax_platforms", "cpu")
     proc_id = int(sys.argv[1]); n_proc = int(sys.argv[2]); port = sys.argv[3]
@@ -243,7 +242,6 @@ def test_real_two_process_cli(tmp_path):
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nimble_tpu_jax_cache_mh")
     env["PYTHONPATH"] = "/root/repo"
 
     single_out = str(tmp_path / "single.tsv")
@@ -405,7 +403,6 @@ def test_real_two_process_cli_bam(tmp_path):
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nimble_tpu_jax_cache_mh")
     env["PYTHONPATH"] = "/root/repo"
 
     single_out = str(tmp_path / "single.tsv.gz")

@@ -16,15 +16,15 @@ from nimble_tpu.config import AlignFilterConfig
 
 
 def _run(engine, mat, lens, mode):
-    old = engine.use_pallas_walk
-    engine.use_pallas_walk = mode
+    old = engine.walk
+    engine.walk = mode
     try:
         seqs = [mat[i, : lens[i]] for i in range(mat.shape[0])]
         full = engine.align_batch(seqs)
         compact = engine.align_raw_compact_from_matrix(mat, lens)
         return full, compact
     finally:
-        engine.use_pallas_walk = old
+        engine.walk = old
 
 
 @pytest.mark.parametrize("seed", [0, 3, 11])
@@ -64,7 +64,7 @@ def test_packed_walk_matches_abs_walk(seed):
     mat = np.stack(reads)
     lens = np.asarray(lens, dtype=np.int32)
 
-    got_full, got_c = _run(engine, mat, lens, False)
+    got_full, got_c = _run(engine, mat, lens, "packed")
     want_full, want_c = _run(engine, mat, lens, "abs")
     assert len(got_full) == len(want_full)
     for i, (g, w) in enumerate(zip(got_full, want_full)):

@@ -5,9 +5,8 @@ reconstructs them from the device-resident reference.  The encoder
 VERIFIES byte-equality before coding, so results must be bit-identical to
 the raw packed path for every read — matching and not.
 
-The feature is OPT-IN (NIMBLE_REFCODE=1; it measured slower on the
-tunnel — see models/aligner._REFCODE), so these tests force the module
-flag on explicitly.
+The feature is OPT-IN (NIMBLE_REFCODE=1; see models/aligner._REFCODE),
+so these tests force the module flag on explicitly.
 """
 
 import numpy as np
